@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""The TPU-native blocked Count-Min layout — khmer_tpu extension.
+"""The blocked Count-Min layout — khmer_tpu extension.
 
 All four of a k-mer's counters live inside one 128-byte block, so a
 batch update costs one row-scatter + one row-gather instead of eight
-element ops (see khmer_tpu/core/blocked.py). ~3x the exact layout's
-counting rate at equal memory; counts are NOT bit-compatible with
+element ops (see khmer_tpu/core/blocked.py). Counts are NOT
+bit-compatible with
 khmer's (a blocked sketch has its own collision profile).
 
-Usage: tpu-blocked.py <reads.fa/fq[.gz]>
+Usage: blocked.py <reads.fa/fq[.gz]>
 """
 
 import os

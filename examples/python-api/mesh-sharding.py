@@ -1,10 +1,16 @@
 #!/usr/bin/env python
 """Multi-device sharded counting over a jax.sharding.Mesh.
 
-Runs on any device set — real TPU slices or (as here, by default) a
-virtual 8-device CPU mesh. Tables shard by bucket range (the analog of
-khmer's hash-space banding); the read stream shards with a k-1 halo
-exchanged over ppermute; per-event statistics join with collectives.
+Runs on the devices JAX finds: every GPU of the host. To try it
+without GPUs, split the CPU backend into 8 devices:
+
+    JAX_PLATFORMS=cpu \
+        XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        python examples/python-api/mesh-sharding.py
+
+Tables shard by bucket range (the analog of khmer's hash-space
+banding); the read stream shards with a k-1 halo exchanged over
+ppermute; per-event statistics join with collectives.
 """
 
 import os
@@ -13,10 +19,6 @@ import sys
 sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.abspath(__file__)), '..', '..'))
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ.setdefault("XLA_FLAGS",
-                      "--xla_force_host_platform_device_count=8")
-
 import jax
 import numpy as np
 
@@ -24,7 +26,7 @@ from khmer_tpu.core import pipeline
 from khmer_tpu.parallel import sharded
 
 k = 21
-mesh = sharded.make_mesh(jax.devices()[:8])
+mesh = sharded.make_mesh(jax.devices())
 graph = sharded.ShardedCountgraph(k, 1 << 16, 4, mesh)
 
 rng = np.random.default_rng(0)

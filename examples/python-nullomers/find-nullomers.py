@@ -3,7 +3,7 @@
 
 Reference example: examples/python-nullomers/find-nullomers.py (uses
 exact counting with the reversible 2-bit hash, whose range is exactly
-4**K). TPU-first difference: instead of a Python loop calling
+4**K). Batched difference: instead of a Python loop calling
 ``ct.get(i)`` 4**K times, the whole hash range is counted with ONE
 batched device gather per chunk — the enumeration runs at device
 gather speed.

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Build a k-mer countgraph from the given sequences.
 
-TPU-native equivalent of the reference scripts/load-into-counting.py
-(:107-217): instead of N pthreads sharing a parser, reads stream
-through the batched device pipeline. Same flags, same outputs
+Equivalent of the reference scripts/load-into-counting.py (:107-217):
+instead of N pthreads sharing a parser, reads stream through the
+batched device pipeline. Same flags, same outputs
 (.ct OXLI file, .info, optional .info.json/.info.tsv).
 
 % load-into-counting.py <output.ct> <data1> [ <data2> <...> ]
@@ -72,9 +72,8 @@ def get_parser():
                         choices=['exact', 'blocked'], default='exact',
                         help="Sketch layout: 'exact' is bit-compatible "
                         "with khmer's OXLI countgraphs; 'blocked' is the "
-                        "TPU-native 128-byte-block layout (~3x counting "
-                        "rate at equal memory, khmer_tpu-only file "
-                        "format, no bigcount).")
+                        "128-byte-block layout (one row update per k-mer, "
+                        "khmer_tpu-only file format, no bigcount).")
     return parser
 
 
@@ -108,7 +107,7 @@ def main():
     if getattr(args, 'tpu_layout', 'exact') == 'blocked':
         from khmer_tpu.core.blocked import BlockedCountgraph
 
-        log_info('making TPU-native blocked countgraph')
+        log_info('making blocked countgraph')
         countgraph = BlockedCountgraph(
             args.ksize, calculate_graphsize(args, 'countgraph'),
             args.n_tables)

@@ -36,8 +36,8 @@ from khmer_tpu.utils.logger import configure_logging, log_error, log_info
 
 DEFAULT_DESIRED_COVERAGE = 20
 # reads per device dispatch: larger windows amortize the host<->device
-# round-trip (measured on TPU v5e: 2048 -> 14k reads/s, 16384 -> 31k,
-# 65536 -> 34k; keep-set identical at every size)
+# round-trip (the keep set is identical at every size; the best size on
+# the GPU is not measured yet)
 WINDOW = int(os.environ.get("KHMER_TPU_DIGINORM_WINDOW", 16384))
 
 
@@ -210,7 +210,7 @@ def main():  # pylint: disable=too-many-branches,too-many-statements
     if (hostengine.use_host_for(countgraph, "diginorm")
             and not countgraph._use_bigcount and args.cutoff <= 255):
         # latency tier: the sequential keep/consume loop runs in one
-        # native pass per window (see doc/tpu.md "dual-engine runtime")
+        # native pass per window (see doc/gpu.md "dual-engine runtime")
         norm = hostengine.NativeNormalizer(countgraph, args.cutoff)
     elif countgraph.storage_kind == "byte":
         norm = ScanNormalizer(countgraph, args.cutoff, window=WINDOW)

@@ -1,12 +1,10 @@
-"""Blocked Count-Min sketch — the TPU-native counting layout.
+"""Blocked Count-Min sketch — the one-block-per-k-mer counting layout.
 
 The reference's Count-Min (ByteStorage, include/oxli/storage.hh:481)
 spreads a k-mer's N counters over N independent prime-sized tables, so
-every add/query costs N uncorrelated random memory touches. On TPU,
-XLA prices a random gather/scatter per *index*, not per byte — a
-128-byte row costs the same one "random op" as a single byte. This
-module therefore keeps all of a k-mer's counters inside ONE 128-byte
-block:
+every add/query costs N uncorrelated random memory touches. This
+module keeps all of a k-mer's counters inside ONE 128-byte block, so a
+k-mer costs one row scatter and one row gather:
 
     table[nblocks, 128] uint8
     block  = hash % nblocks          (nblocks prime)
@@ -16,9 +14,8 @@ i.e. four independent sub-counters, one in each 32-lane quarter of the
 block (a blocked Count-Min / blocked Bloom layout, cf. Putze et al.,
 "Cache-, Hash- and Space-Efficient Bloom Filters"). One row-scatter
 plus one row-gather replaces the reference layout's 8 element-ops per
-event — ~2.5x the exact-layout throughput at equal memory, with the
-usual slightly-higher collision rate of blocked sketches (compensate
-with ~15% more memory when FP-rate-critical).
+event, with the usual slightly-higher collision rate of blocked sketches
+(compensate with ~15% more memory when FP-rate-critical).
 
 Counting semantics mirror ByteStorage::add exactly as *defined* for
 this layout: saturating 8-bit counters, count() = min over the four
@@ -274,11 +271,11 @@ def _blocked_occupied(table):
 
 
 class BlockedCounttable(_MurmurMixin, _BlockedBase):
-    """Blocked Count-Min with murmur hashing (TPU-native Counttable)."""
+    """Blocked Count-Min with murmur hashing (blocked Counttable)."""
 
 
 class BlockedCountgraph(HashgraphMixin, _TwoBitMixin, _BlockedBase):
-    """Blocked Count-Min + de Bruijn graph ops (TPU-native Countgraph)."""
+    """Blocked Count-Min + de Bruijn graph ops (blocked Countgraph)."""
 
     def __init__(self, ksize, starting_size, n_tables=SUB, primes=None):
         _BlockedBase.__init__(self, ksize, starting_size, n_tables,

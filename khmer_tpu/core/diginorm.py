@@ -4,7 +4,7 @@ sequential-exact.
 The reference algorithms (scripts/normalize-by-median.py:155-179,
 scripts/trim-low-abund.py:162-238) are strictly sequential: each
 consumed read updates the countgraph, changing later decisions. The
-TPU engine restores exactness per *window* of read bundles:
+device engine restores exactness per *window* of read bundles:
 
   1. one device call hashes every read in the window and gathers its
      *per-table* bin counts from the current sketch;

@@ -312,9 +312,7 @@ class ScanNormalizer:
         self.k = countgraph.ksize()
         self._primes = tuple(countgraph._primes)
         # u32 shadow: min(total, 255) == the u8 saturating count
-        self._tables = tuple(t.astype(jnp.uint32)
-                             for t in countgraph.tables)
-        self._n_unique = countgraph._n_unique
+        self._reseed_from_graph()
         self._dirty = False
 
     def process_window(self, bundles):

@@ -7,12 +7,12 @@ The runtime has two execution tiers with bit-identical semantics:
   the scale-out path across a device mesh;
 - the **host tier** (src/hostgraph.cc via ctypes) — the latency path
   for sequential state machines over small streams (tagging, diginorm,
-  partition BFS, HLL, trims), where a single device dispatch costs more
-  interconnect latency than the whole workload.
+  partition BFS, HLL, trims), where per-window device round trips
+  outweigh the work itself.
 
-This mirrors the split inside an accelerator (small ops go to the VPU,
-big matmuls to the MXU): the dispatcher here routes by workload shape,
-the result is identical either way (tests/test_hostengine.py).
+The dispatcher sends those families to the host tier whenever the
+native library loads; the result is identical either way
+(tests/test_hostengine.py; on the GPU, chip_smoke.py).
 
 Env overrides: KHMER_TPU_ENGINE = auto (default) | host | device,
 KHMER_TPU_HOST_THREADS = BFS thread count.

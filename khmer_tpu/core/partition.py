@@ -7,7 +7,7 @@ the implicit de Bruijn graph until other tags are hit (bounded breadth
 decomposed into tag-range subsets whose partition maps (.pmap files)
 merge afterwards.
 
-TPU design: the graph is read-only during partitioning, so BFS runs for
+Device design: the graph is read-only during partitioning, so BFS runs for
 many start tags concurrently — each wave batches the 8-neighbor
 membership probes of every active traversal into one device call, while
 exact FIFO bookkeeping (visit order, breadth caps, big-traversal

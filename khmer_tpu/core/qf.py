@@ -19,7 +19,7 @@ Counting Filter: Counting Quotient Filter", SIGMOD 2017):
 - queries walk the real structure: block offset -> occupieds rank ->
   runends select locates the run, then the run's counters are decoded.
 
-Design difference from gqf (deliberate, TPU-framework idiom): inserts
+Design difference from gqf (deliberate, batched-framework idiom): inserts
 are buffered in a pending delta map and folded in by a *vectorized
 canonical rebuild* (numpy) instead of per-key slot shifting. The RSQF
 layout is canonical — runs in quotient order, remainders sorted, greedy

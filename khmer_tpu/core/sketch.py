@@ -69,7 +69,7 @@ class _Sketch:
     # host copy and makes the host authoritative until the next device
     # access re-uploads.  A sketch driven purely through the native
     # engine never touches the device at all (critical for the
-    # latency-bound small-stream paths — see doc/tpu.md).
+    # latency-bound small-stream paths — see doc/gpu.md).
 
     @property
     def tables(self):

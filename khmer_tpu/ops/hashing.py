@@ -1,7 +1,7 @@
 """K-mer hashing ops: 2-bit reversible rolling hash + MurmurHash3_x64_128.
 
-TPU-first design: the batched functions operate on [B, L] tensors of 2-bit
-DNA codes entirely with 64-bit vector ops (VPU), producing one canonical
+Batched design: the batched functions operate on [B, L] tensors of 2-bit
+DNA codes entirely with 64-bit vector ops, producing one canonical
 hash per sliding window. Bit-exact with the reference semantics:
 
 - 2-bit codec A=0, T=1, C=2, G=3; complement = code ^ 1

@@ -191,18 +191,11 @@ class ShardedScanNormalizer(DS.ScanNormalizer):
     """
 
     def __init__(self, countgraph, desired_coverage, mesh, window=512):
-        super().__init__(countgraph, desired_coverage, window=window)
         self.mesh = mesh
         self.D = mesh.devices.size
         self._shard_sizes = tuple(
-            _pad_to(p, self.D) // self.D for p in self._primes)
-        sharding = NamedSharding(mesh, P(AXIS))
-        self._tables = tuple(
-            jax.device_put(
-                jnp.concatenate([
-                    t, jnp.zeros(s * self.D - len(t), jnp.uint32)]),
-                sharding)
-            for t, s in zip(self._tables, self._shard_sizes))
+            _pad_to(int(p), self.D) // self.D for p in countgraph._primes)
+        super().__init__(countgraph, desired_coverage, window=window)
 
     def _phase_a(self, codes, lengths, L):
         fa = make_sharded_med_ok(
@@ -219,20 +212,21 @@ class ShardedScanNormalizer(DS.ScanNormalizer):
     def finalize(self):
         if not self._dirty:
             return
+        # saturate to u8 on the shards; only u8 bytes leave the mesh
         self.graph.tables = tuple(
-            jnp.minimum(jnp.asarray(np.asarray(t)[:p]),
-                        MAX_KCOUNT).astype(jnp.uint8)
+            jnp.asarray(np.asarray(
+                jnp.minimum(t, MAX_KCOUNT).astype(jnp.uint8))[:p])
             for t, p in zip(self._tables, self._primes))
         self.graph._n_unique = self._n_unique
         self._dirty = False
 
     def _reseed_from_graph(self):
+        # shard the u8 tables, then widen each shard to u32: no device
+        # ever holds a whole table's u32 shadow
         sharding = NamedSharding(self.mesh, P(AXIS))
         self._tables = tuple(
             jax.device_put(
-                jnp.concatenate([
-                    t.astype(jnp.uint32),
-                    jnp.zeros(s * self.D - len(t), jnp.uint32)]),
-                sharding)
+                jnp.pad(jnp.asarray(t), (0, s * self.D - len(t))),
+                sharding).astype(jnp.uint32)
             for t, s in zip(self.graph.tables, self._shard_sizes))
         self._n_unique = self.graph._n_unique

@@ -6,10 +6,10 @@ oxli/partition.py:22 and hashgraph.cc:349 divide_tags_into_subsets).
 Its hot loop is the BFS neighbor probe: 8 Bloom membership tests per
 frontier node (src/oxli/traversal.cc:100-133).
 
-TPU-native distribution: the Nodegraph's bit tables are sharded by
+Mesh distribution: the Nodegraph's bit tables are sharded by
 bucket range across the device mesh (the banding analog,
 src/oxli/kmer_hash.cc:261); a frontier's 8N candidate neighbors are
-broadcast over ICI, every device ANDs the bits it owns, and a psum of
+broadcast to every device, every device ANDs the bits it owns, and a psum of
 the per-device "missing" votes yields exact membership — i.e. frontier
 k-mers are routed to their bucket owners and the membership verdicts
 joined collectively, replacing the reference's shared-memory Bloom
@@ -52,12 +52,11 @@ class ShardedNodegraph:
 
     def __init__(self, graph, mesh, route="auto", route_slack=2.0):
         if route == "auto":
-            # measured (SCALING_r05.json probe sweep, 8Ki..2Mi
-            # candidates): a membership probe is one bit-test per
-            # element, so routing's slot bookkeeping costs more than it
-            # saves at every size on the CPU mesh — broadcast is the
-            # production path; route=True stays available for real-ICI
-            # pods where the psum's O(n*D) traffic is the bottleneck
+            # a membership probe is one bit-test per element, so
+            # routing's slot bookkeeping outweighed its savings on a
+            # virtual CPU mesh; the crossover on NVLink is not measured
+            # (ROADMAP Speed #5). route=True stays available where the
+            # psum's O(n*D) traffic is the bottleneck
             route = False
         if graph.storage_kind != "bit":
             raise ValueError("ShardedNodegraph wraps a Nodegraph "

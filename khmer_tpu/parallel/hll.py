@@ -2,7 +2,7 @@
 
 The reference parallelizes unique-kmers with one HLL per OpenMP
 thread, max-merged at the end (src/oxli/hllcounter.cc:344-417). The
-TPU-native equivalent: the flat code stream shards across the device
+Mesh equivalent: the flat code stream shards across the device
 mesh (with a k-1 halo via ppermute, as in sharded counting), each
 device scatter-maxes its windows into a LOCAL register array, and one
 ``pmax`` collective merges the registers — HLL merge is register-wise

@@ -4,11 +4,11 @@ The reference scales across processes by file hand-off — partition
 workers write ``.subset.N.pmap`` files that a merge step folds
 (reference oxli/partition.py:22-45, src/oxli/subset.cc:884), and
 sketches merge via ``update_from`` bitwise-OR (storage.hh:228) /
-HLL register max (hllcounter.cc:406).  The TPU-native equivalent runs
+HLL register max (hllcounter.cc:406).  The equivalent here runs
 one JAX process per host in multi-controller SPMD: a single
 ``jax.sharding.Mesh`` spans every host's devices, per-host input
 shards enter through ``make_array_from_process_local_data``, and the
-merges ride collectives (ICI within a host, DCN across hosts) instead
+merges ride collectives (within and across hosts) instead
 of the filesystem:
 
 - ``global_consume``: the sharded counting step (parallel/sharded.py)
@@ -34,7 +34,7 @@ def initialize(coordinator_address, num_processes, process_id,
                local_device_count=4):
     """Bootstrap one process of a multi-controller run.
 
-    Call BEFORE any other JAX API.  On TPU pods, num_processes /
+    Call BEFORE any other JAX API.  On a GPU cluster, num_processes /
     process_id come from the deployment; on CPU (tests, dev boxes)
     this forces `local_device_count` virtual devices per process.
     """

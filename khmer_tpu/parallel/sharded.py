@@ -1,6 +1,6 @@
 """Multi-chip sharded counting over a jax.sharding.Mesh.
 
-TPU-native replacement for khmer's shared-memory parallelism
+Mesh replacement for khmer's shared-memory parallelism
 (threads + atomics, reference src/oxli/read_parsers.cc:334,
 storage.hh:183,600) and its hash-banding work decomposition
 (src/oxli/kmer_hash.cc:261-275):
@@ -11,13 +11,14 @@ storage.hh:183,600) and its hash-banding work decomposition
 - each sketch table is sharded by *bucket range* across devices
   (tensor-parallel analog of khmer's banding; bands compose exactly,
   reference tests/test_banding.py);
-- hashes are all-gathered over ICI; every device updates only the
+- hashes are all-gathered (or, routed, sent to their owner with one
+  all_to_all); every device updates only the
   bucket range it owns, so the serial scatter work is split D ways;
 - per-event new-k-mer credits are OR-reduced (psum on one-hot bools)
   so n_unique keeps the reference's exact sequential semantics.
 
-Works identically on a virtual CPU mesh (tests / dry-run) and real
-TPU slices.
+Works identically on a virtual CPU mesh (tests / dry-run) and on
+several GPUs.
 """
 
 import functools
@@ -59,7 +60,7 @@ class ShardedCountgraph:
     """Countgraph with bucket-range-sharded tables over a device mesh.
 
     With ``route=True`` events travel to their per-table bucket-range
-    owner over an ICI ``all_to_all`` (one collective carrying all
+    owner over an ``all_to_all`` (one collective carrying all
     n_tables sub-streams), so each device sorts and scatters only
     ~n_tables/D of the stream instead of running the full-stream dedup
     replicated (SURVEY §2.9 "all-to-all route (hash->owner chip) then
@@ -87,9 +88,9 @@ class ShardedCountgraph:
         self._shard_sizes = tuple(_pad_to(p, self.D) // self.D
                                   for p in self._primes)
         if route == "auto":
-            # measured crossover (SCALING_r05.json): the exact layout's
-            # T-substream routing tax beats the replicated full-stream
-            # dedup from D=4 up; at D=2 gathered still wins
+            # routed from D=4 up, gathered below: the crossover was
+            # chosen on a virtual CPU mesh and is not measured on GPUs
+            # (ROADMAP Speed #5)
             route = self.D >= 4
         self.route = bool(route) and self.D > 1
         self.route_slack = float(route_slack)
@@ -200,7 +201,7 @@ def make_sharded_consume(primes, shard_sizes, k, chunk, mesh):
             ext = jnp.concatenate([codes_local, halo])
             _, f, r = H.rolling_hash_windows(ext[None, :], k)
             local_h = jnp.minimum(f, r)[0][:local]
-            # gather the full hash stream (ICI all-gather)
+            # gather the full hash stream (all-gather)
             hashes = jax.lax.all_gather(local_h, AXIS, tiled=True)[:W]
             # windows must stay within one read and inside the fill
             rid = jnp.zeros(chunk, jnp.int32).at[starts].add(
@@ -372,7 +373,7 @@ def make_sharded_consume_routed(primes, shard_sizes, k, chunk, mesh,
 class ShardedBlockedCountgraph:
     """Blocked Count-Min sharded by block range over a device mesh.
 
-    The TPU-native layout (core/blocked.py) shards more cleanly than
+    The blocked layout (core/blocked.py) shards more cleanly than
     the reference's independent prime tables: all four sub-counters of
     a k-mer live in ONE 128-byte block, so exactly one device owns
     every event — per-event new-k-mer credit is computed entirely
@@ -380,7 +381,7 @@ class ShardedBlockedCountgraph:
     layout needs a per-event OR across devices instead).
 
     With ``route=True`` (default) events travel to their owner device
-    over an ICI ``all_to_all`` (SURVEY §2.9: hash->owner-chip routing,
+    over an ``all_to_all`` (SURVEY §2.9: hash->owner-device routing,
     the banding analog), so each device sorts/scatters only ~1/D of
     the stream — the per-device kernel work shrinks with the mesh. The
     fixed route capacity is ``slack * local/D`` per (src, dst) pair
@@ -404,9 +405,9 @@ class ShardedBlockedCountgraph:
         self.D = mesh.devices.size
         self._ksize = int(ksize)
         if route == "auto":
-            # measured (SCALING_r05.json): routing wins from D=2 up for
-            # the blocked layout (routing compacts to valid events, so
-            # t(D) beats even the windowed D=1 baseline)
+            # routing compacts to valid events and splits the update
+            # D ways; the threshold is not measured on GPUs (ROADMAP
+            # Speed #5)
             route = True
         self.route = bool(route) and self.D > 1
         self.route_slack = float(route_slack)
@@ -540,7 +541,7 @@ def make_sharded_blocked_consume_routed(nblocks, shard, k, chunk, mesh,
     """all_to_all-routed sharded blocked consume.
 
     Each device hashes its slice, buckets events by owner device
-    (owner = block // shard), and ships them over ICI with ONE
+    (owner = block // shard), and ships them with ONE
     all_to_all per chunk; the update then runs on ~1/D of the stream
     per device instead of a masked pass over the full stream
     (SURVEY §2.9 "all-to-all route (hash->owner chip) then local

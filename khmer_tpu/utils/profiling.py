@@ -1,6 +1,6 @@
 """Profiling/tracing hooks (aux subsystem; the reference has only
 progress reporting + Makefile gcov hooks — SURVEY.md §5.1 — so the
-TPU-native framework adds JAX profiler traces instead).
+framework adds JAX profiler traces instead).
 
 Two entry points:
 

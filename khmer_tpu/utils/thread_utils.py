@@ -1,6 +1,6 @@
 """Batched read filtering with a host writer.
 
-TPU-native replacement for the reference's thread-pool read filter
+Batched replacement for the reference's thread-pool read filter
 (khmer/thread_utils.py:73-160, `ThreadedSequenceProcessor`): there the
 parallelism was N Python threads each applying `process_fn` to groups
 of reads, with a writer thread draining an output queue. Here the

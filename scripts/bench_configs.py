@@ -22,7 +22,7 @@ and re-measured 2026-08-20):
 These configs are LATENCY-bound tiny streams, so they exercise the
 framework's host tier (src/hostgraph.cc): the same bit-exact engines
 that run sharded on the device mesh for throughput-scale inputs (see
-doc/tpu.md "dual-engine runtime").  Exactness is asserted inline:
+doc/gpu.md "dual-engine runtime").  Exactness is asserted inline:
 config 2 must keep exactly the reference's read set size, config 4
 must reproduce estimate 7948, config 5 must produce 51 partitions.
 """

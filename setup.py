@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""khmer_tpu — TPU-native k-mer counting and de Bruijn graph engine."""
+"""khmer_tpu — GPU k-mer counting and de Bruijn graph engine."""
 
 import subprocess
 import sys
@@ -68,7 +68,7 @@ class BuildPyWithNative(build_py):
 setup(
     name="khmer_tpu",
     version="0.1.0",
-    description="TPU-native k-mer counting and de Bruijn graph engine "
+    description="GPU k-mer counting and de Bruijn graph engine "
                 "(khmer-compatible)",
     packages=find_packages(exclude=["tests"]),
     package_data={"khmer_tpu.core": ["data/*.npz"]},

@@ -1,6 +1,6 @@
 // fastx_io.cc — native FASTA/FASTQ parsing + 2-bit packing.
 //
-// The TPU-native replacement for the reference's SeqAn-based read
+// The batched replacement for the reference's SeqAn-based read
 // parser (src/oxli/read_parsers.cc): the hot host-side work — record
 // splitting, sequence cleaning (acgt->upper, other->A), and 2-bit
 // encoding into the flat-stream chunk layout consumed by the device

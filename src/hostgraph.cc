@@ -1,6 +1,6 @@
 // hostgraph.cc — native host engine for latency-bound sequential paths.
 //
-// The TPU is the throughput tier (bulk counting via the device kernels
+// The device is the throughput tier (bulk counting via the device kernels
 // in khmer_tpu/core/sketch_kernels.py + core/blocked.py, sharded via
 // parallel/*).  But several of the reference's flagship workloads are
 // *latency*-bound sequential state machines over tiny streams:
@@ -1370,7 +1370,7 @@ void hg_median_counts(
 // `starts` are the ascending read-start offsets within `codes` (pad
 // entries >= nfill are ignored); windows never span a read boundary.
 // Feeds the device tier's dense consume path: every emitted hash is a
-// real k-mer, so the TPU-side row ops pay zero padding tax.  Writes
+// real k-mer, so the device-side row ops pay zero padding tax.  Writes
 // hashes in stream order; returns the count.
 long long hg_hash_dense(
     const uint8_t* codes, long long nfill,

@@ -1,6 +1,6 @@
 // Reference (khmer/liboxli) hot-path timings for BASELINE configs.
 // Built against the UNMODIFIED reference library to measure the C++
-// rates our TPU engine is compared with. Usage:
+// rates the device engine is compared with. Usage:
 //   refbench count <fastq> [nthreads]     (config 1 hot path)
 //   refbench diginorm <fa> <C>            (config 2 hot path)
 //   refbench trim <fq>                    (config 3 hot path)

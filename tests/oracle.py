@@ -3,7 +3,13 @@
 These reimplement include/oxli/storage.hh add/get sequentially, one
 event at a time, to validate that the batched device pipelines are
 sequential-equivalent (counts, n_unique, n_occupied, bigcount).
+
+`twobit_hashes` and `blocked_model` are whole-stream numpy models of
+the 2-bit canonical hash and of the blocked Count-Min layout
+(core/blocked.py), sized for streams of 10^8 k-mers.
 """
+
+import numpy as np
 
 MAX_KCOUNT = 255
 MAX_BIGCOUNT = 65535
@@ -117,3 +123,71 @@ class OracleBit:
         for b in self.tables[i]:
             arr[b // 8] |= 1 << (b % 8)
         return arr
+
+
+def twobit_hashes(codes, k):
+    """Canonical 2-bit k-mer hashes of equal-length reads, in stream order.
+
+    codes: [n_reads, read_len] uint8 with A=0, T=1, C=2, G=3. Window i of
+    a read packs its k bases forward (first base most significant) and,
+    reverse-complemented, backward (complement = code ^ 1); the hash is
+    the smaller of the two. Returns a flat uint64 array, read by read.
+    """
+    codes = np.asarray(codes, dtype=np.uint64)
+    w = codes.shape[1] - k + 1
+    fwd = np.zeros((codes.shape[0], w), np.uint64)
+    rev = np.zeros((codes.shape[0], w), np.uint64)
+    for j in range(k):
+        col = codes[:, j:j + w]
+        fwd |= col << np.uint64(2 * (k - 1 - j))
+        rev |= (col ^ np.uint64(1)) << np.uint64(2 * j)
+    return np.minimum(fwd, rev).ravel()
+
+
+def _mix64(x):
+    """splitmix64 finalizer (wrapping uint64 arithmetic)."""
+    x = x ^ (x >> np.uint64(30))
+    x = x * np.uint64(0xBF58476D1CE4E5B9)
+    x = x ^ (x >> np.uint64(27))
+    x = x * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def blocked_model(hashes, nblocks):
+    """The blocked Count-Min layout over a whole stream, in numpy.
+
+    A k-mer touches four lanes of the 128-lane block ``hash % nblocks``:
+    lane ``32*t + ((mix64(hash) >> 5*t) & 31)`` for t in 0..3. A lane
+    holds min(number of touches, 255), and a k-mer is new iff it is the
+    first in the stream to touch one of its lanes. One sort of
+    (lane << bits | event) keys gives both.
+
+    Returns (table as a flat [nblocks * 128] uint8 array, n_unique).
+    """
+    h = np.asarray(hashes, dtype=np.uint64)
+    n = h.size
+    ebits = max(1, (n - 1).bit_length())
+    if (int(nblocks) * 128) << ebits >= 1 << 63:
+        raise ValueError("stream too long for 64-bit lane|event keys")
+    mixed = _mix64(h)
+    base = (h % np.uint64(nblocks)).astype(np.int64) * 128
+    event = np.arange(n, dtype=np.int64)
+    keys = np.empty((n, 4), np.int64)
+    for t in range(4):
+        off = ((mixed >> np.uint64(5 * t)) & np.uint64(31)).astype(np.int64)
+        keys[:, t] = ((base + (32 * t) + off) << ebits) | event
+    del mixed, base, event
+    keys = keys.ravel()
+    keys.sort()
+    lanes = keys >> ebits
+    head = np.empty(keys.size, bool)
+    head[:1] = True
+    np.not_equal(lanes[1:], lanes[:-1], out=head[1:])
+    starts = np.flatnonzero(head)
+    del head
+    touches = np.diff(np.append(starts, keys.size))
+    table = np.zeros(int(nblocks) * 128, np.uint8)
+    table[lanes[starts]] = np.minimum(touches, 255)
+    new = np.zeros(n, bool)
+    new[keys[starts] & ((1 << ebits) - 1)] = True
+    return table, int(new.sum())

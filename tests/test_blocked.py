@@ -1,4 +1,4 @@
-"""Blocked (TPU-native) Count-Min sketch: semantics + integration.
+"""Blocked Count-Min sketch: semantics + integration.
 
 The blocked layout keeps a k-mer's four sub-counters inside one
 128-byte block (core/blocked.py). Its *defined* semantics mirror

@@ -126,7 +126,7 @@ def test_abundance_dist_single(tmp_path):
 
 def test_profiler_trace_hook(tmp_path, monkeypatch):
     """KHMER_TPU_TRACE captures a JAX profiler trace around consume
-    (SURVEY §5.1: the TPU framework's tracing aux subsystem)."""
+    (SURVEY §5.1: the framework's tracing aux subsystem)."""
     import os
 
     from khmer_tpu import Counttable

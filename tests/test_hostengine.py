@@ -3,7 +3,7 @@
 Both engines must produce bit-identical results (tables, tags,
 n_unique, partition maps, keep decisions).  The native engine is the
 latency path (src/hostgraph.cc); the JAX path is the throughput /
-mesh-sharded path — see doc/tpu.md "dual-engine runtime".
+mesh-sharded path — see doc/gpu.md "dual-engine runtime".
 """
 
 import os

@@ -4,7 +4,7 @@ sharded consume — compared against a single-process oracle.
 
 This is the SURVEY §5.8 story made runnable on one machine: two real
 JAX processes form one multi-controller SPMD program (an 8-device mesh,
-4 per process), standing in for two TPU hosts on DCN.
+4 per process), standing in for two hosts.
 """
 
 import json

@@ -1,5 +1,5 @@
 """Multi-device sharded counting: equivalence with the single-device
-engine on the virtual 8-device CPU mesh (the TPU analog of khmer's
+engine on the virtual 8-device CPU mesh (the mesh analog of khmer's
 banding-composition test, tests/test_banding.py)."""
 
 import numpy as np

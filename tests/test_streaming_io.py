@@ -18,8 +18,6 @@ DATA = "/root/reference/tests/test-data"
 def run_shell(cmd, fail_ok=False):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR",
-                   os.path.join(REPO, ".jax_cache"))
     r = subprocess.run(["bash", "-ec", cmd], capture_output=True,
                        text=True, env=env, cwd=REPO, timeout=540)
     if r.returncode != 0 and not fail_ok:

@@ -4,7 +4,7 @@ Second tier of the reference's table-fixture strategy
 (tests/table_fixtures.py + test_tabletype.py, ~40 fixtures x types):
 read-level statistics, trims, spectral errors, save/load round trips,
 bigcount, abundance distribution — run over every table type
-including the QF and blocked TPU-native layouts.
+including the QF and blocked layouts.
 """
 
 import numpy as np
